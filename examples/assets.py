@@ -4,12 +4,14 @@ Procedurally generated example assets.
 The reference downloads wallpapers/videos/music at runtime
 (/root/reference/examples/basic/demo.py:16-49, pooch URLs); this environment
 has zero egress, so equivalent assets are synthesized once into
-examples/assets/ — a painterly background image, a music-like WAV (chords,
-bass line, hat/kick transients) and a MIDI arpeggio.
+examples/assets/ — a music-like WAV (chords, bass line, hat/kick
+transients) and a MIDI arpeggio — or, for the painterly background image,
+computed in memory.
 """
 
 from __future__ import annotations
 
+import functools
 import wave
 from pathlib import Path
 
@@ -37,10 +39,10 @@ def _assets_dir() -> Path:
 ASSETS = _assets_dir()
 
 
-def background_image(path: Path = ASSETS / "background.png", size=(1920, 1080)) -> Path:
-    if path.exists():
-        return path
-    path.parent.mkdir(parents=True, exist_ok=True)
+@functools.lru_cache(maxsize=1)
+def background_array(size=(1920, 1080)) -> np.ndarray:
+    """The painterly background as a read-only (H, W, 3) uint8 array, made
+    deterministically from a fixed seed (no image file or decoder needed)."""
     rng = np.random.default_rng(7)
     width, height = size
     y, x = np.mgrid[0:height, 0:width].astype(np.float32)
@@ -63,9 +65,9 @@ def background_image(path: Path = ASSETS / "background.png", size=(1920, 1080)) 
     rgb[stars] = 1.0
     rgb = np.clip(rgb, 0, 1)
 
-    from PIL import Image
-    Image.fromarray((rgb * 255).astype(np.uint8)).save(path)
-    return path
+    image = (rgb * 255).astype(np.uint8)
+    image.flags.writeable = False
+    return image
 
 
 def music_wav(path: Path = ASSETS / "music.wav", seconds: float = 10.0,

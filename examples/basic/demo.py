@@ -101,7 +101,7 @@ class Multipass(ShaderScene):
     """Multi layers done on a single shader"""
 
     def build(self):
-        ShaderTexture(scene=self, name="background").from_image(assets.background_image())
+        ShaderTexture(scene=self, name="background").from_numpy(assets.background_array())
         self.shader.texture.layers = 2
 
         def frag(sf):
@@ -122,7 +122,7 @@ class MotionBlur(ShaderScene):
     """Poor man's Motion Blur (temporal texture ring average)"""
 
     def build(self):
-        ShaderTexture(scene=self, name="background").from_image(assets.background_image())
+        ShaderTexture(scene=self, name="background").from_numpy(assets.background_array())
         self.shader.texture.temporal = 10
         self.shader.texture.layers = 2
 
@@ -148,7 +148,7 @@ class Dynamics(ShaderScene):
     """Second order system springing a zoom on a square wave"""
 
     def build(self):
-        ShaderTexture(scene=self, name="background").from_image(assets.background_image())
+        ShaderTexture(scene=self, name="background").from_numpy(assets.background_array())
         self.dynamics = ShaderDynamics(scene=self, name="iShaderDynamics", frequency=4)
         self.shader.fragment = lambda sf: sf.stexture(
             "background", zoom(sf.stuv, 0.85 + 0.1 * sf.iShaderDynamics, vec2(0.5, 0.5)))
@@ -259,9 +259,9 @@ class MusicBars(ShaderScene):
 def _visualizer_bar_prelude(ctx):
     """Whole-batch radial-bar field: the bar's per-pixel index map (angle ->
     spectrogram bin, half-plane -> channel) is frame-invariant, so the full
-    batch is ONE one-hot MXU contraction of the per-frame tables against the
-    static field (ops.sampling.lookup_nearest_1d_select_batched) instead of
-    a per-frame select chain inside the render scan.
+    batch is ONE gather of the per-frame tables over the static field
+    (ops.sampling.lookup_nearest_1d_select_batched) instead of a per-frame
+    lookup inside the render scan.
 
     Computes the angle field from screen gluv lines — exact for this scene's
     static default 2D camera (the per-frame fallback in visualizer_frag uses
@@ -285,19 +285,18 @@ def _visualizer_bar_prelude(ctx):
 
 
 def _visualizer_static_prelude(ctx):
-    """Batch-INVARIANT per-pixel fields the tail kernel would otherwise
-    recompute per frame per pixel on the VPU (a Pallas kernel is opaque to
-    XLA's loop-invariant code motion, so hoisting must happen here):
+    """Batch-INVARIANT per-pixel fields the tail would otherwise recompute
+    per frame per pixel inside the render scan:
 
       * fscale: the bar-length falloff 0.05 + 3*sstep01(circle/2) — its
-        atan2 is ~15 VPU ops/pixel/frame in-kernel;
+        atan2 is ~15 ops/pixel/frame;
       * rad0:   |camera-plane uv| (the per-frame radius is rad0 * scale);
       * blink:  the snare-blink radial power ((clip(|agluv|-0.3))^2)^3.
 
     Returned with leading axis 1 -> engine static-prelude path (computed
     once per batch, read by every frame). Exact for the scene's static
     default 2D camera, same as _visualizer_bar_prelude; the per-frame
-    in-kernel formulation remains the fallback and the semantic reference.
+    formulation in the tail remains the fallback and the semantic reference.
 
     Deactivates (None) outside offline mode — signaled, like the bar
     prelude, by the spectrogram sequence's absence: in an interactive
@@ -320,7 +319,7 @@ def _visualizer_static_prelude(ctx):
     t6 = jnp.clip(alen - 0.3, 0.0, 1.0) ** 2
     blink = t6 * t6 * t6
     # Vignette: vpow = pow(vig*20, p) with a per-frame exponent p ->
-    # hoist log(max(vig*20, eps)); the kernel keeps only exp(p * lvig)
+    # hoist log(max(vig*20, eps)); the tail keeps only exp(p * lvig)
     sx = (jnp.arange(width, dtype=jnp.float32) + 0.5) / width
     sy = 1.0 - (jnp.arange(height, dtype=jnp.float32) + 0.5) / height
     vig = (sx * (1.0 - sx))[None, :] * (sy * (1.0 - sy))[:, None]
@@ -347,7 +346,7 @@ def _static_prelude_field(key):
 def visualizer_frag(sf):
     """Radial bars music visualizer — the flagship scene (visualizer.frag).
 
-    TPU restructuring of the reference GLSL's hot path: the background's uv
+    Restructuring of the reference GLSL's hot path: the background's uv
     map is an axis-aligned scale+translate (default 2D camera), so the
     per-pixel bilinear sample becomes two 1D interpolations
     (ops.sampling.sample_separable) instead of 2D gathers; the 80-tap radial
@@ -380,10 +379,9 @@ def visualizer_frag(sf):
     # z^2 * tex_h / render_h for this scene's axis-aligned map; z <= 0.934
     # always (z = 0.92 + 0.01 sin - 0.02 vol, vol >= small undershoot),
     # bound with z <= 0.96 for window margin. Positions stay well inside
-    # [0, n-1] (no REPEAT seam), the blocked contract. Rows interpolate in
-    # XLA (banded matmuls); the column stage runs INSIDE the fused tail
-    # kernel (tailfuse.ColSampled), so the full-res sampled planes never
-    # touch HBM.
+    # [0, n-1] (no REPEAT seam), the blocked contract. Rows interpolate
+    # here (banded matmuls); the column stage runs in the tail stage
+    # (tailfuse.ColSampled), next to the math that reads it.
     render_h = uv.shape[0]
     base_tpp = 0.96 ** 2 * tex.height / render_h
     base_rows = sample_rows_planes_blocked(
@@ -431,29 +429,28 @@ def visualizer_frag(sf):
         precision="bfloat16", out_dtype=jnp.bfloat16)[:3]
     color_inv = 1.0 / (quality * directions)
 
-    # Music bar geometry the MXU lookup needs at full field (the rest of the
-    # bar math re-derives per tile inside the fused tail kernel below).
+    # Music bar geometry the lookup needs at full field (the rest of the
+    # bar math re-derives in the tail below).
     # music_uv = rotate2d(uv, -pi/2)*scale = (uv_y, -uv_x)*scale with
     # scale > 0, and atan2(k*a, k*b) == atan2(a, b): the radial angle and
     # the half-plane channel select need neither the scale nor a
     # materialized (H, W, 2) music_uv — two broadcast LINES feed the whole
-    # lookup (the tail kernel re-derives r/my from the same lines).
+    # lookup (the tail re-derives r/my from the same lines).
     uv_x_line = uv[0, :, 0]
     uv_y_line = uv[:, 0, 1]
     from shaderflow_tpu.ops import tailfuse
     bar_stack = sf.prelude_indexed("iBarField")
     if bar_stack is not None:
-        # The tail kernel reads this frame's bar plane straight from the
-        # batch stack (tailfuse.Indexed) — no per-frame slice in HBM
+        # The tail reads this frame's bar plane from the batch stack
+        # (tailfuse.Indexed)
         bar_raw = tailfuse.Indexed(bar_stack[0], bar_stack[1])
     else:
         bar_raw = sf.prelude("iBarField")
 
-    # Batch-invariant per-pixel fields (_visualizer_static_prelude): reading
-    # a precomputed bf16 plane per tile beats recomputing atan2/sqrt/
-    # smoothstep chains per frame per pixel inside the kernel (opaque to
-    # XLA's loop-invariant hoisting). Inactive (None) in realtime/CPU mode
-    # — the tail's in-kernel formulation below remains the reference.
+    # Batch-invariant per-pixel fields (_visualizer_static_prelude): read a
+    # precomputed plane instead of recomputing atan2/sqrt/smoothstep chains
+    # per frame per pixel. Inactive (None) in realtime mode — the tail's own
+    # formulation below remains the reference.
     def _indexed(name):
         stack = sf.prelude_indexed(name)
         return tailfuse.Indexed(stack[0], stack[1]) if stack is not None else None
@@ -466,8 +463,7 @@ def visualizer_frag(sf):
     if bar_raw is None:
         # Per-frame fallback (realtime/streamed spectrogram): nearest bin
         # lookup indexed by the radial angle, channel chosen by the bar's
-        # half-plane — one two-level MXU lookup for the whole bar field
-        # instead of 8M pointwise gathers
+        # half-plane
         from shaderflow_tpu.ops.sampling import lookup_nearest_1d_select
         circle = jnp.abs(
             tailfuse.atan2(uv_x_line[None, :], -uv_y_line[:, None]) / PI)
@@ -483,14 +479,14 @@ def visualizer_frag(sf):
     wave = 0.2 * wave_row[0]                                               # (W', C)
 
     # The trivial 2D camera's plane projection is an axis-aligned affine map:
-    # its uv and out-of-bounds collapse to 1D lines the tail rebuilds per tile
+    # its uv and out-of-bounds collapse to 1D lines the tail broadcasts
     cam_x = uv[0, :, 0]
     cam_y = uv[:, 0, 1]
     cam_oob = cam.out_of_bounds[0, :].astype(jnp.float32)
 
     # Everything after the samples is per-pixel math + the SSAA box filter:
-    # one fused Pallas kernel (ops/tailfuse.py), reference semantics preserved
-    # by construction (same function runs unfused on non-TPU backends).
+    # the tail stage (ops/tailfuse.py), one kernel with the final pass on
+    # the GPU.
     from shaderflow_tpu.ops import tailfuse
 
     def tail(tp):
@@ -502,11 +498,8 @@ def visualizer_frag(sf):
             t = jnp.clip(x, 0.0, 1.0)
             return t * t * (3.0 - 2.0 * t)
 
-        # Base + radial-blur combine happens here (in VMEM) rather than as
-        # its own full-field XLA pass. tp.vec serves the planes in the tail
-        # color dtype (f32, or bf16 under SHADERFLOW_TAIL_BF16); f32-derived
-        # factors below re-enter the chain through tp.f so the rgb math
-        # stays in that dtype end to end.
+        # Base + radial-blur combine happens here rather than as its own
+        # full-field pass.
         rgb = [(base + blur) * color_inv
                for base, blur in zip(tp.vec("base"), tp.vec("blur"))]
 
@@ -530,9 +523,8 @@ def visualizer_frag(sf):
         scale = 1.0 - 0.4 * jnp.sqrt(jnp.abs(vol))
         radius = 0.17
         if has_static:
-            # GEOMETRY planes: explicit f32 — they gate the bar ring's hard
-            # edges, which bf16 tail mode must not quantize (the reason the
-            # prelude stores them f32 in the first place)
+            # GEOMETRY planes: f32 — they gate the bar ring's hard edges
+            # (the reason the prelude stores them f32 in the first place)
             fscale = tp.plane("fscale", dtype=jnp.float32)
             rad0 = tp.plane("rad0", dtype=jnp.float32)
             r = rad0 * scale
@@ -544,9 +536,7 @@ def visualizer_frag(sf):
             rad0 = jnp.sqrt(ux * ux + uy * uy)
             r = jnp.sqrt(mx * mx + my * my)
 
-        # GEOMETRY: bar feeds the ring threshold (hard edge) — f32 under
-        # bf16 tail mode, which also keeps sqrt/div off the bf16 EUP path
-        # this chip does not have (tools/probe_bf16_ops.py)
+        # GEOMETRY: bar feeds the ring threshold (hard edge) — f32
         bar = jnp.sqrt(tp.plane("bar", dtype=jnp.float32) / 1000.0) * fscale
         ring = radius + 0.5 * bar
         inside = r < radius
@@ -619,8 +609,8 @@ class Visualizer(ShaderScene):
             end=PianoNote.from_frequency(14000.0),
             piano=True,
         )
-        self.back = ShaderTexture(scene=self, name="background").from_image(
-            assets.background_image())
+        self.back = ShaderTexture(scene=self, name="background").from_numpy(
+            assets.background_array())
         self.shader.fragment = visualizer_frag
         self.batch_preludes["iBarField"] = _visualizer_bar_prelude
         for key in ("iVizFscale", "iVizRad", "iVizBlink", "iVizLvig"):

@@ -29,12 +29,10 @@ CHANNEL_COLORS = [
 
 
 def piano_roll_frag(sf):
-    """TPU formulation: every lookup depends on the COLUMN only (the key
+    """Line formulation: every lookup depends on the COLUMN only (the key
     under x) and every time term on the ROW only, so all texture reads are
     1D line gathers (thousands, not millions) — and the 2D image is pure
-    broadcast combination, which runs INSIDE the fused tail kernel
-    (ops/tailfuse.py): the slot loop's full-field masks/smoothsteps never
-    materialize in HBM (previously ~20 f32 fields per 4K frame)."""
+    broadcast combination in the tail stage (ops/tailfuse.py)."""
     from shaderflow_tpu.ops import tailfuse
     MAX_SLOTS = 8  # simultaneous notes per key checked per pixel
 

@@ -25,11 +25,10 @@ from shaderflow_tpu.scene import ShaderScene
 def mandelbrot_frag(sf):
     """Escape-time Mandelbrot with magma palette (mandelbrot.frag).
 
-    Iteration runs through ops.fractal.escape_iterations: per-VMEM-tile
-    early-exit while loops on TPU (frame cost follows each tile's own
+    Iteration runs through ops.fractal.escape_iterations: per-block
+    early-exit while loops on the GPU (frame cost follows each block's own
     escape time), masked fori_loop elsewhere. The palette + out-of-bounds
-    mask + SSAA downsample + u8 quantize run in the fused tail kernel
-    (iteration counts stream through HBM exactly once)."""
+    mask + SSAA downsample + u8 quantize run in the tail stage."""
     from shaderflow_tpu.ops import tailfuse
     from shaderflow_tpu.ops.fractal import (escape_iterations,
                                             escape_iterations_sep)
@@ -54,17 +53,15 @@ def mandelbrot_frag(sf):
     slope = 4.0 * float(max(abs(magma[1] - magma[0])))
     cap = math.ceil(quality * (1.0 - (0.5 / (255.0 * slope)) ** (1.0 / 20.0)))
     # Trivial (axis-aligned) camera: gluv is an outer product of two lines,
-    # so the escape kernel reads two LINES instead of four (H, W) planes +
-    # an interior plane (~165 MB/frame of HBM at 4K), and out-of-bounds is
-    # a column line. `iCameraTrivial` is a static — rotating the camera
+    # so the escape kernel reads two LINES instead of four (H, W) planes,
+    # and out-of-bounds is a column line. `iCameraTrivial` is a static — rotating the camera
     # flips it and retraces onto the general plane path below.
     trivial = bool(sf.uniform("iCameraTrivial", default=False))
     if trivial:
         cx_line = cam.gluv[0, :, 0] - 0.5
         cy_line = cam.gluv[:, 0, 1]
-        # out_dtype=f32: the tail consumes floats — an i32 output would
-        # cost a standalone 66 MB/frame convert pass at 4K (exact: counts
-        # are f32-representable)
+        # out_dtype=f32: the tail consumes floats (exact: counts are
+        # f32-representable)
         iters = escape_iterations_sep(cx_line, cy_line, quality,
                                       radius=3.0, saturate=cap,
                                       out_dtype=jnp.float32)
@@ -77,8 +74,8 @@ def mandelbrot_frag(sf):
 
     def tail(tp):
         t = 1.0 - tp.plane("iters") / quality
-        # x^20 as a multiply chain (exact for t in [0, 1]; Mosaic has no
-        # pow lowering and exp(20 log t) loses the t == 0 interior exactly)
+        # x^20 as a multiply chain (exp(20 log t) would lose the t == 0
+        # interior exactly)
         t2 = t * t
         t4 = t2 * t2
         t16 = (t4 * t4) * (t4 * t4)
@@ -124,9 +121,8 @@ def julia_frag(sf):
     # irrelevant at that magnitude. Counts below the cap stay exact.
     import math
     cap = math.ceil(quality * (1.0 - (0.25 / 255.0) ** (1.0 / 8.0)))
-    # monotone: the orbiting c stays within |c| <= 0.96 << r^2 - r = 6
     iters = escape_iterations_z0(z0, cx, cy, quality, radius=3.0,
-                                 saturate=cap, monotone=True)
+                                 saturate=cap)
 
     TAU = 2.0 * jnp.pi
 
@@ -204,7 +200,7 @@ def tetration_frag(sf):
     def tail(tp):
         # hue = the reference's (0, 2pi)-range atan2 in CYCLES, fed to the
         # radians-domain hsv (preserves the scene's existing look);
-        # tailfuse.atan2 is the kernel-safe poly with the standard
+        # tailfuse.atan2 is the oracle-pinned poly with the standard
         # (-pi, pi] range — mod folds it to (0, 2pi)
         h = jnp.mod(tailfuse.atan2(tp.plane("zy"), tp.plane("zx")), TAU) / TAU
         value = tp.plane("k")

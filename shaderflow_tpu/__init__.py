@@ -1,12 +1,12 @@
 """
-shaderflow-tpu: a TPU-native shader-scene rendering framework.
+shaderflow-tpu: a shader-scene rendering framework on JAX (NVIDIA GPUs).
 
 Re-creation of the capabilities of BrokenSource/ShaderFlow (reference:
 /root/reference/shaderflow/__init__.py) where "fragment shaders" are pure
 per-pixel JAX programs compiled by XLA — whole scenes become one jitted
 program per frame batch — instead of GLSL over OpenGL.
 
-Layout (mirrors SURVEY.md §1's layer map, TPU-first):
+Layout (mirrors SURVEY.md §1's layer map):
   ops/       pure JAX shader stdlib (GLSL-equivalent math, sampling, camera rays)
   module.py  ShaderModule lifecycle (build/setup/update/pipeline/handle/...)
   shader.py  ShaderProgram: pixel programs + jit compile cache + hot reload

@@ -8,7 +8,7 @@ chunked by the frame dt) or a soundcard recorder (optional dependency);
 ShaderAudio adds smoothed iAudioVolume / iAudioSTD uniforms and reports the
 file duration as the scene runtime.
 
-TPU-first difference: in offline (freewheel) file mode the whole file is
+Device-first difference: in offline (freewheel) file mode the whole file is
 decoded up front — downstream DSP (spectrogram, waveform) batches the
 entire export into single device programs instead of per-frame CPU FFTs
 (SURVEY.md §5 "long-context" mapping).

@@ -6,7 +6,7 @@ Role-equivalent of the reference waveform module
 audio reduced into `length * samplerate` bars (Average / RMS / STD chunk
 reducers) written as a (points, 1, channels) texture.
 
-TPU-first: offline exports precompute all frames' bars in one batched device
+Device-first: offline exports precompute all frames' bars in one batched device
 reduction (ops/spectral.waveform_batch); realtime reduces the rolling buffer
 per frame on the host.
 """

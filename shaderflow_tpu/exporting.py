@@ -10,7 +10,7 @@ frame pump), crash detection, and the closing "Took Xs at Yfps | Zx
 Realtime" stats log.
 
 Differences: frames arrive as (F, H, W, 3) uint8 device batches already
-downsampled and quantized on-TPU; no vflip filter is needed (frames leave
+downsampled and quantized on the device; no vflip filter is needed (frames leave
 the device top-down); when no ffmpeg binary exists the sink falls back to
 OpenCV/raw writers (io/sinks.py) and audio is written as a sidecar WAV.
 """

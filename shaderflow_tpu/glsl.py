@@ -1,5 +1,5 @@
 """
-GLSL fragment front-end: run the reference's `.frag` authoring format on TPU.
+GLSL fragment front-end: run the reference's `.frag` authoring format as JAX.
 
 The reference assembles GLSL fragment shaders with a metaprogrammer and hands
 them to OpenGL (/root/reference/shaderflow/shader.py:186-239, example

@@ -2,7 +2,7 @@
 //
 // Role (see SURVEY.md §2.9): the reference uses the author's TurboPipe C++
 // extension to overlap GL PBO readbacks with pipe writes to FFmpeg's stdin
-// (exporting.py:162-171). Here the producer is the TPU device->host transfer
+// (exporting.py:162-171). Here the producer is the device->host transfer
 // of a uint8 frame batch; this pump gives the same overlap on the host side:
 // submit() memcpys a frame into a pinned ring slot and returns immediately,
 // while a worker thread drains slots to the output fd in submission order.

@@ -8,7 +8,7 @@ duration/destroy hooks, can relay() messages to every module, and
 full_pipeline() concatenates every module's uniforms. The scene itself is a
 module (the first one).
 
-Differences driven by the TPU engine:
+Differences driven by the batched engine:
   * pipeline() values are batched per frame and fed to jitted programs, so
     uniforms are numpy-coercible values, not GL handles.
   * Modules that stream per-frame texture data declare it by writing through

@@ -27,9 +27,7 @@ Array = jax.Array
 
 def box_downsample(x: Array, factor: int) -> Array:
     """Exact factor x factor average pooling of (H, W, C) via
-    lax.reduce_window — the one pooling formulation that stays fast on TPU
-    (reshape(H/s, s, W/s, s)+mean re-tiles the array, ~500x slower; strided
-    slices get rewritten into serial gathers inside larger programs)."""
+    lax.reduce_window."""
     window = jax.lax.reduce_window(
         x, 0.0, jax.lax.add,
         window_dimensions=(factor, factor, 1),
@@ -93,9 +91,7 @@ def ssaa_downsample(
         return ((1.0 - 2.0 * m) * rows[:, 1:1 + out_width]
                 + m * (rows[:, 0:out_width] + rows[:, 2:2 + out_width]))
 
-    # Exact average pooling when taps align with texel centers. Strided
-    # slices, NOT reshape(H/s, s, W/s, s)+mean: that reshape re-tiles the
-    # whole array on TPU (measured ~500x slower than slicing).
+    # Exact average pooling when taps align with texel centers.
     if (rh == out_height * subsample) and (rw == out_width * subsample) and subsample > 1:
         return box_downsample(render, subsample)
 

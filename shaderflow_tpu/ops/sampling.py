@@ -1,7 +1,7 @@
 """
 Texture sampling kernels.
 
-TPU-native replacement for OpenGL texture units: textures are (H, W, C)
+Replacement for OpenGL texture units: textures are (H, W, C)
 float32 device arrays sampled with gather + lerp. Semantics match GL:
 texel centers at (i + 0.5)/N, GL_REPEAT wraps, CLAMP_TO_EDGE clamps,
 GL_LINEAR bilinear / GL_NEAREST point sampling. Arrays are stored with
@@ -14,7 +14,6 @@ without any flipping in user code.
 from __future__ import annotations
 
 import math
-import os
 from typing import NamedTuple
 
 import jax
@@ -92,10 +91,10 @@ def sample(tex: Sampler2D, uv: Array) -> Array:
     # the ops of the bilinear math itself (measured on the GLSL
     # visualizer's 80-tap blur: ~217 ops/px/sample -> the flat form is the
     # dominant-term fix). The takes are PER CHANNEL on purpose: one take on
-    # the whole (H*W, C) array forces an (N, C) gather result whose TPU
-    # tiling pads the minor C (2..4) up to the 128 lane width — a 32-64x
-    # HBM blowup that OOMs 4K scenes (measured: f32[33M,2] gather padded
-    # 253M -> 15.8G). C takes on 1D planes keep clean layouts; texels and
+    # the whole (H*W, C) array forces an (N, C) gather result whose
+    # layout can pad the minor C (2..4) — a memory blowup that OOMed 4K
+    # scenes on the original accelerator. C takes on 1D planes keep clean
+    # layouts; texels and
     # per-channel lerp order are unchanged (bit-identical values).
     chans = tex.data.shape[2:]
     planes = ([tex.data.reshape(h * w)] if not chans else
@@ -137,7 +136,7 @@ def sample(tex: Sampler2D, uv: Array) -> Array:
 #
 # Role-equivalent of the reference's mipmaps/anisotropy texture attributes
 # (/root/reference/shaderflow/texture.py:82-137), where the GL driver builds
-# the pyramid and selects levels from quad derivatives. TPU-native shape:
+# the pyramid and selects levels from quad derivatives. Here:
 # the pyramid is built INSIDE the jitted program (2x2 mean pooling per
 # level, a reshape the compiler turns into cheap vector adds; for static
 # textures XLA hoists the whole chain out of the frame scan, so it costs
@@ -349,8 +348,7 @@ def _interp_matrix(positions: Array, n: int, repeat: bool) -> Array:
     """(M, n) linear-interpolation weight matrix: row m holds the bilinear
     hat weights of continuous texel position positions[m] over the n texels
     (2 nonzeros per row; REPEAT folds weights across the wrap seam). A dense
-    matmul with this matrix IS 1D linear texture filtering — and it runs on
-    the MXU, where TPU gathers would serialize."""
+    matmul with this matrix IS 1D linear texture filtering."""
     texels = jnp.arange(n, dtype=jnp.float32)
     if repeat:
         delta = positions[:, None] - texels[None, :]
@@ -721,9 +719,8 @@ def convolve2d(image: Array, kernel: Array) -> Array:
     This is cross-correlation — exactly the splat_kernel orientation.
 
     Implemented as static shift-and-add over the padded image: XLA fuses the
-    taps into one elementwise loop. (lax.conv with a single feature channel
-    pads the feature dim to the full register lane width on TPU — a huge
-    memory blowup — so it is exactly the wrong tool for image-space taps.)
+    taps into one elementwise loop (lax.conv with a single feature channel
+    is the wrong tool for image-space taps).
     """
     h, w, c = image.shape
     kh, kw = kernel.shape
@@ -742,8 +739,8 @@ def lookup_nearest_1d(tex: Sampler2D, v_field: Array, mode: str = "onehot",
     first column) for a small table texture — the radial-spectrogram access
     pattern.
 
-    TPU pointwise gathers serialize (~3M lookups/s); the default "onehot"
-    mode contracts a bf16 one-hot against the table on the MXU (table values
+    The default "onehot" mode contracts a bf16 one-hot against the table
+    as a matmul (table values
     round to bf16, ~2^-8 relative — invisible at 8 bits); "select" unrolls
     a select-accumulate chain (exact, but measured to fuse worse inside
     large shader graphs — kept for small-graph uses)."""
@@ -850,18 +847,14 @@ def lookup_nearest_1d_select(tex: Sampler2D, v_field: Array,
 
 def lookup_nearest_1d_select_batched(
         tables: Array, v_field: Array, channel_where: Array = None,
-        channel: int = 0, repeat_y: bool = False, out_dtype=None,
-        block: int = 512) -> Array:
+        channel: int = 0, repeat_y: bool = False, out_dtype=None) -> Array:
     """Batched form of lookup_nearest_1d_select: expand per-frame tables
     over ONE static index field -> (B, H, W).
 
-    The per-frame select chain costs ~(groups + chunk) VPU ops per pixel per
-    frame inside the render scan. When the index field is frame-invariant
-    (the radial-bar angle map) and only the tiny (bins, C) table changes per
-    frame, the whole batch collapses to one one-hot MXU contraction OUTSIDE
-    the scan: tableT (B, n) @ onehot(n, px) per pixel block — the one-hot is
-    built once for all B frames (measured 27 -> ~7 ms/batch at 4K batch=64).
-    Run it from a scene batch_preludes hook (engine.PreludeCtx).
+    When the index field is frame-invariant (the radial-bar angle map) and
+    only the tiny (bins, C) table changes per frame, the whole batch is one
+    gather from the (B, bins*C) tables OUTSIDE the render scan. Run it from
+    a scene batch_preludes hook (engine.PreludeCtx).
 
     tables: (B, bins, C); v_field (H, W); channel_where as in the per-frame
     variant (True -> channel 0). Values round through bf16 (same as the
@@ -880,52 +873,11 @@ def lookup_nearest_1d_select_batched(
     flat_tables = tables.reshape(batch, n)
     out_dtype = out_dtype or jnp.float32
 
-    from shaderflow_tpu.ops import tailfuse
-    if not tailfuse.backend_supports_fusion():
-        # Exact gather (fast on CPU; bf16-round the values so both paths
-        # agree with the per-frame select variant's precision)
-        flat16 = flat_tables.astype(jnp.bfloat16)
-        out = jnp.take(flat16, flat_index.reshape(-1), axis=1)
-        return out.reshape(batch, height, width).astype(out_dtype)
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_pad = max(128, -(-n // 128) * 128)
-    table_t = jnp.zeros((batch, n_pad), jnp.bfloat16).at[:, :n].set(
-        flat_tables.astype(jnp.bfloat16))
-    npx = height * width
-    npx_pad = -(-npx // block) * block
-    idx_row = jnp.zeros((1, npx_pad), jnp.float32).at[0, :npx].set(
-        flat_index.reshape(-1).astype(jnp.float32))
-
-    def kernel(idx_ref, table_ref, out_ref):
-        idx = idx_ref[...]                                   # (1, block)
-        # int iota + convert: Mosaic has no f32 iota lowering
-        iota = jax.lax.broadcasted_iota(
-            jnp.int32, (n_pad, 1), 0).astype(jnp.float32)
-        onehot = (iota == idx).astype(jnp.bfloat16)          # (n_pad, block)
-        out_ref[...] = jax.lax.dot_general(
-            table_ref[...], onehot, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32).astype(out_ref.dtype)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(npx_pad // block,),
-        in_specs=[
-            pl.BlockSpec((1, block), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((batch, n_pad), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((batch, block), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((batch, npx_pad), out_dtype),
-        interpret=os.environ.get("SHADERFLOW_TAILFUSE_INTERPRET") == "1",
-    )(idx_row, table_t)
-    if npx_pad != npx:
-        out = out[:, :npx]
-    return out.reshape(batch, height, width)
+    # Exact gather; values round through bf16 so the batched and per-frame
+    # select variants agree
+    flat16 = flat_tables.astype(jnp.bfloat16)
+    out = jnp.take(flat16, flat_index.reshape(-1), axis=1)
+    return out.reshape(batch, height, width).astype(out_dtype)
 
 
 def texel_fetch(tex: Sampler2D, xy: Array) -> Array:

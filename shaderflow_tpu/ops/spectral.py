@@ -1,14 +1,14 @@
 """
 Batched audio DSP: windows, STFT, natural-scale band matrices, waveform bars.
 
-TPU-first restructuring of the reference's per-frame audio math
+Device-first restructuring of the reference's per-frame audio math
 (/root/reference/shaderflow/audio/spectrogram.py, audio/waveform.py): where
 the realtime reference computes one windowed rFFT + sparse band matmul per
 frame on the CPU, the offline export path here knows all samples up front and
 computes the whole export's spectrogram in a single batched program — a
-(F, fft_size) windowed rFFT and one dense (bins x fft_bins) matmul that maps
-straight onto the MXU (sparsity is unnecessary on a systolic array; see
-SURVEY.md §2.9's scipy row).
+(F, fft_size) windowed rFFT and one dense (bins x fft_bins) matmul
+(sparsity is unnecessary for a matmul this small; see SURVEY.md §2.9's
+scipy row).
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ def no_window(size: int) -> np.ndarray:
 
 def _xp(x):
     """numpy in -> numpy out: the realtime per-frame CPU path must not
-    bounce through the device (eager complex ops are UNIMPLEMENTED on some
-    remote TPU backends); jax in -> jax out for the jitted batch path."""
+    bounce through the device (one dispatch per frame for a few hundred
+    samples); jax in -> jax out for the jitted batch path."""
     return np if isinstance(x, np.ndarray) else jnp
 
 def magnitude_amplitude(x: Array) -> Array:
@@ -261,8 +261,8 @@ def waveform_batch(
     per-chunk reductions are computed ONCE over the whole track (a contiguous
     reshape — no gather) and each frame gathers its `points` chunk indices:
     O(S) work + a (F, points) gather, instead of materializing (C, F,
-    points*chunk) sample windows through a pointwise gather (~3 M idx/s on
-    TPU; 37 s and a 20 GB allocation at a 300-frame 15-min-track config)."""
+    points*chunk) sample windows through a pointwise gather (a 20 GB
+    allocation at a 300-frame 15-min-track config)."""
     C, S = audio.shape
     n_chunks = max(1, S // chunk_size)
     if S < n_chunks * chunk_size:

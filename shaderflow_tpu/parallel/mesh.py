@@ -1,9 +1,9 @@
 """
-Multi-chip scaling: shard the frame batch over an ICI device mesh.
+Multi-device scaling: shard the frame batch over a 1D device mesh.
 
 The reference is single-process/single-GPU (SURVEY.md §2 "Parallelism"):
-its only parallel axis is per-pixel on the GPU. On TPU pods the natural
-scaling axis of this domain is FRAMES — frames of an export are independent
+its only parallel axis is per-pixel on the GPU. Across several cards the
+natural scaling axis of this domain is FRAMES — frames of an export are independent
 given their uniforms and audio textures (all tiny and replicated), so a
 batch of F frames shards F/N per chip over a 1D mesh with zero collectives
 in the hot loop; each chip runs the same scanned render program on its
@@ -20,11 +20,8 @@ from __future__ import annotations
 from typing import Optional
 
 import jax
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 
 def frame_mesh(n_devices: Optional[int] = None, axis: str = "frames") -> Mesh:
@@ -63,11 +60,7 @@ def shard_frame_renderer(render_fn, mesh: Mesh, axis: str = "frames"):
         in_specs=(P(), P(axis), P(axis), P(), P()),
         out_specs=P(axis),
     )
-    try:
-        sharded = shard_map(local, check_vma=False, **specs)
-    except TypeError:  # pre-0.8 shard_map
-        sharded = shard_map(local, check_rep=False, **specs)
-    return jax.jit(sharded)
+    return jax.jit(shard_map(local, check_vma=False, **specs))
 
 
 def shard_row_renderer(render_fn, mesh: Mesh, carry_shapes: dict,

@@ -203,7 +203,7 @@ class ShaderPiano(ShaderModule):
         them by iFrameIndex inside the render scan). Kills the 512 KB/frame
         roll-texture host stream that made 4K exports transfer-bound (the
         reference re-fills these textures every frame on the GL side,
-        piano/module.py:202-277 — on a remote TPU that stream dominates).
+        piano/module.py:202-277).
 
         Exact parity with the streamed path: the same scan logic runs at
         t_f = offset + f*speed/fps (the freewheel time series) and both

@@ -2,8 +2,8 @@
 ShaderProgram — pixel programs compiled by XLA instead of a GL driver.
 
 Role-equivalent of the reference shader module
-(/root/reference/shaderflow/shader.py), redesigned for the TPU execution
-model: a "fragment shader" is a pure Python function `main(sf) -> rgba`
+(/root/reference/shaderflow/shader.py), redesigned for the batched JAX
+execution model: a "fragment shader" is a pure Python function `main(sf) -> rgba`
 operating on whole (H, W) coordinate arrays through the `Frag` context —
 the same vocabulary the reference's GLSL metaprogrammer injects (coordinate
 flavors, uniforms, samplers, camera) — and the engine traces it into the
@@ -207,9 +207,8 @@ class Frag:
 
     def prelude_indexed(self, name: str):
         """The FULL (B, ...) prelude stack plus this frame's batch position
-        — for feeding ops.tailfuse.Indexed so the fused kernel reads the
-        frame's slice straight from the stack (no per-frame HBM slice).
-        None when the prelude is inactive."""
+        — for feeding ops.tailfuse.Indexed, which selects the frame's
+        plane inside the tail stage. None when the prelude is inactive."""
         stack = self._prelude_stacks.get(name)
         if stack is None or self._prelude_step is None:
             return None
@@ -218,10 +217,11 @@ class Frag:
     # -- fused tail stage -----------------------------------------------------
 
     def tail(self, fn, **inputs):
-        """Defer the remaining per-pixel math to the fused tail stage
-        (ops/tailfuse.py): `fn(tp)` runs in the PLANE dialect either inside
-        one Pallas kernel fused with the SSAA downsample + u8 quantize (TPU)
-        or on full-resolution arrays (reference semantics; CPU / fallback).
+        """Defer the remaining per-pixel math to the tail stage
+        (ops/tailfuse.py): `fn(tp)` runs in the PLANE dialect together
+        with the SSAA downsample + u8 quantize when this is the scene's
+        main program (as one kernel on the GPU in the exact-pooling
+        regime).
         Only valid as the RETURN value of a pixel program."""
         from shaderflow_tpu.ops import tailfuse
         height, width = self._coords["astuv"].shape[:2]
@@ -508,8 +508,9 @@ class ShaderProgram(ShaderModule):
             out = self._resolved(ctx)
             if isinstance(out, TailSpec):
                 if self.instances == 1:
-                    # The engine decides whether to fuse (main program) or
-                    # materialize (anything else samples this texture)
+                    # The engine decides whether to feed it to the final
+                    # pass (main program) or materialize it (anything else
+                    # samples this texture)
                     return out
                 # Instanced draws need the materialized layer for compositing
                 from shaderflow_tpu.ops import tailfuse

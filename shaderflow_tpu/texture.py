@@ -8,7 +8,7 @@ scene's render resolution (track factor, `final` flag tracks the post-SSAA
 resolution), exposes filter/repeat sampling state, and supports CPU writes
 (full, viewport sub-rect) plus image/numpy uploads.
 
-TPU mapping: the matrix is one (T, L, H, W, C) float32 array. For textures
+Device mapping: the matrix is one (T, L, H, W, C) float32 array. For textures
 rendered by a ShaderProgram the live copy is device-resident and carried
 through the batched lax.scan (rolling = jnp.roll on the temporal axis, the
 functional form of deque.rotate at texture.py:305-308). For CPU-written
@@ -102,6 +102,14 @@ class ShaderTexture(ShaderModule):
         bytes host->device (1 byte/channel instead of 4 — 4K batch 32 drops
         3.19 GB -> 0.80 GB per flush) and normalizes to f32 inside the jit.
         Invalidated by any f32 / partial / multi-box write."""
+        self.sequence = None      # optional DEVICE (F_total, H, W, C) per-frame content
+        """Device-resident per-frame texture sequence: when set (offline
+        audio paths), the render scan indexes it by the absolute frame
+        number instead of streaming host snapshots — zero per-batch
+        host->device traffic for per-frame textures (set_sequence())."""
+        self.sequence_window: Optional[int] = None  # ring window L (set_sequence)
+
+        super().__init__(scene=scene, name=name, **kwargs)
 
     @property
     def matrix(self) -> Optional[np.ndarray]:
@@ -118,14 +126,6 @@ class ShaderTexture(ShaderModule):
     def matrix(self, value: Optional[np.ndarray]) -> None:
         self._matrix = value
         self._matrix_stale = False
-        self.sequence = None      # optional DEVICE (F_total, H, W, C) per-frame content
-        """Device-resident per-frame texture sequence: when set (offline
-        audio paths), the render scan indexes it by the absolute frame
-        number instead of streaming host snapshots — zero per-batch
-        host->device traffic for per-frame textures (set_sequence())."""
-        self.sequence_window: Optional[int] = None  # ring window L (set_sequence)
-
-        super().__init__(scene=scene, name=name, **kwargs)
 
     def build(self) -> None:
         self.make()
@@ -317,7 +317,8 @@ class ShaderTexture(ShaderModule):
         if viewport is None:
             raw = np.asarray(data)
             if (raw.dtype == np.uint8 and self._temporal == 1
-                    and self._layers == 1):
+                    and self._layers == 1 and temporal == 0
+                    and layer in (0, -1)):
                 # The single box IS the whole matrix: keep the exact u8
                 # bytes (storage row order) for u8-on-the-wire streaming and
                 # DEFER the f32 normalize (the matrix property materializes
@@ -351,7 +352,11 @@ class ShaderTexture(ShaderModule):
         return self
 
     def read(self, temporal: int = 0, layer: int = -1) -> np.ndarray:
-        return self.matrix[temporal, layer]
+        """A read-only view of one box. Writes go through write(), which
+        keeps wire_u8 (the streamed copy) in step with the matrix."""
+        view = self.matrix[temporal, layer]
+        view.flags.writeable = False
+        return view
 
     def from_numpy(self, data: np.ndarray) -> "ShaderTexture":
         """Size the texture to an image array (H, W, C) and upload it."""
@@ -399,8 +404,7 @@ class ShaderTexture(ShaderModule):
             import jax.numpy as jnp
             # Re-binding the same source (cached module precomputes on a
             # repeat run) must cost zero device work: the eager pad / upload
-            # ops below are each a dispatch round-trip (~tens of ms on a
-            # remote-attached chip), and for host arrays (piano-roll
+            # ops below are each a dispatch round-trip, and for host arrays (piano-roll
             # sequences, hundreds of MB at 4K) a full re-upload.
             cache = getattr(self, "_sequence_bind_cache", None)
             if cache is not None and cache[0] is array and cache[1] == quantize:

@@ -1,7 +1,7 @@
 """Async latest-frame-wins display path (io/displaypump.py).
 
 The realtime loop must never block on the device->host frame transfer
-(remote-attached chips: ~hundreds of ms per 1080p frame), scene pacing and
+(a slow link can take longer than a frame period), scene pacing and
 input stay live between displayed frames, and slow transfers drop frames
 latest-wins instead of queueing. Reference behavior being replaced: the GL
 swapchain blit, reference scene.py:461-462 (free on-GPU; not free here)."""
@@ -239,7 +239,7 @@ def test_realtime_forced_micro_batch_frame_count(monkeypatch):
 def test_rt_micro_batch_predictive_jump(monkeypatch):
     """A big budget miss jumps the auto size in ONE step (each size change
     compiles a new engine program — stepping through every power of two
-    pays seconds of compile per step on a remote chip)."""
+    pays seconds of compile per step)."""
     monkeypatch.delenv("SHADERFLOW_RT_BATCH", raising=False)
     from shaderflow_tpu.scene import ShaderScene, WindowBackend
 

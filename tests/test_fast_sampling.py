@@ -176,15 +176,3 @@ def test_lookup_batched_matches_per_frame():
             tex, v_field, channel_where=channel_where), np.float32)
         # both paths round values through bf16
         np.testing.assert_allclose(batched[b], per_frame, atol=1e-6)
-
-
-def test_lookup_batched_kernel_interpret(monkeypatch):
-    """The Pallas expand kernel (interpret mode) matches the gather path."""
-    from shaderflow_tpu.ops import sampling
-    tables, v_field, channel_where = _bar_tables_and_field(seed=9, h=16, w=48)
-    plain = np.asarray(sampling.lookup_nearest_1d_select_batched(
-        tables, v_field, channel_where=channel_where), np.float32)
-    monkeypatch.setenv("SHADERFLOW_TAILFUSE_INTERPRET", "1")
-    kernel = np.asarray(sampling.lookup_nearest_1d_select_batched(
-        tables, v_field, channel_where=channel_where, block=256), np.float32)
-    np.testing.assert_allclose(kernel, plain, atol=1e-6)

@@ -1,12 +1,19 @@
-"""Escape-time iteration: XLA/Pallas parity and reference semantics."""
+"""Escape-time iteration: kernel/XLA parity and reference semantics.
+
+The Pallas kernel (Triton route) runs here in interpret mode; the compiled
+kernel is checked on the card by tests/test_gpu.py and chip_smoke.py."""
+
+import functools
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
-from shaderflow_tpu.ops.fractal import (_escape_pallas, _escape_xla, escape_iterations, escape_iterations_z0)
+from shaderflow_tpu.ops import fractal
+from shaderflow_tpu.ops.fractal import (
+    _escape_kernel, _escape_xla, _interior_mask, escape_iterations,
+    escape_iterations_sep, escape_iterations_z0)
 
 
 def grid(h=64, w=128):
@@ -14,6 +21,17 @@ def grid(h=64, w=128):
     y = np.linspace(-1.2, 1.2, h, dtype=np.float32)
     cx, cy = np.meshgrid(x, y)
     return jnp.asarray(cx), jnp.asarray(cy)
+
+
+def lines(h=64, w=128):
+    cx_line = jnp.asarray(np.linspace(-2.2, 1.0, w, dtype=np.float32))
+    cy_line = jnp.asarray(np.linspace(-1.3, 1.3, h, dtype=np.float32))
+    cx = jnp.broadcast_to(cx_line[None, :], (h, w))
+    cy = jnp.broadcast_to(cy_line[:, None], (h, w))
+    return cx_line, cy_line, cx, cy
+
+
+kernel = functools.partial(_escape_kernel, interpret=True)
 
 
 def test_known_points():
@@ -26,9 +44,7 @@ def test_known_points():
 def test_pallas_interpret_matches_xla():
     cx, cy = grid()
     expected = np.asarray(_escape_xla(cx, cy, cx, cy, 100, 3.0))
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(_escape_pallas(cx, cy, cx, cy, 100, 3.0, tile=(32, 64)))
+    got = np.asarray(kernel(cx, cy, cx, cy, 100, 3.0, block=(32, 64)))
     np.testing.assert_array_equal(got, expected)
 
 
@@ -49,48 +65,26 @@ def test_saturate_exact_below_cap_clamped_above():
 
 
 def test_pallas_saturate_monotone_matches_xla():
-    """The optimized path (monotone maskless step + saturation cap rounded
-    up to an unroll multiple then clamped back) must stay bit-identical to
-    the plain XLA fallback, including with the interior shortcut."""
-    from shaderflow_tpu.ops.fractal import _interior_mask
-    from jax.experimental.pallas import tpu as pltpu
-
+    """Saturation cap (not a multiple of the unroll, so the remainder steps
+    run) plus the in-kernel interior shortcut must stay bit-identical to
+    the plain XLA loop."""
     cx, cy = grid()
-    interior = _interior_mask(cx, cy)
-    expected = np.asarray(
-        _escape_xla(cx, cy, cx, cy, 100, 3.0, interior=interior, saturate=57))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(_escape_pallas(
-            cx, cy, cx, cy, 100, 3.0, tile=(32, 64), unroll=8,
-            interior=interior, saturate=57, sub_rows=8, monotone=True))
+    expected = np.asarray(_escape_xla(
+        cx, cy, cx, cy, 100, 3.0, interior=_interior_mask(cx, cy),
+        saturate=57))
+    got = np.asarray(kernel(cx, cy, cx, cy, 100, 3.0, block=(32, 64),
+                            unroll=8, interior=True, saturate=57))
     np.testing.assert_array_equal(got, expected)
 
 
-def test_pallas_monotone_matches_masked_form():
-    """monotone=True (maskless aliveness from |z|^2) must be bit-identical
-    to the sticky-mask form — the step arithmetic is the same; only the
-    liveness bookkeeping differs. Julia form at a |c| <= r^2 - r point
-    (the monotone-soundness bound)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_kernel_julia_form_matches_xla():
+    """Julia form (z0 = pixel, constant c, no interior shortcut)."""
     cx, cy = grid()
     ccx = jnp.full_like(cx, -0.8)
     ccy = jnp.full_like(cy, 0.156)
-    with pltpu.force_tpu_interpret_mode():
-        masked = np.asarray(_escape_pallas(
-            cx, cy, ccx, ccy, 80, 3.0, tile=(32, 64), sub_rows=8))
-        maskless = np.asarray(_escape_pallas(
-            cx, cy, ccx, ccy, 80, 3.0, tile=(32, 64), sub_rows=8,
-            monotone=True))
-    np.testing.assert_array_equal(maskless, masked)
-
-    # Cross-backend (XLA fori fallback): the compiler may contract the
-    # orbit arithmetic into FMAs, so chaotic boundary pixels can shift
-    # their escape step — bounded, rare, and never more than ±1 count.
-    xla = np.asarray(_escape_xla(cx, cy, ccx, ccy, 80, 3.0))
-    diff = np.abs(maskless.astype(np.int64) - xla.astype(np.int64))
-    assert (diff > 0).mean() < 0.002
-    assert diff.max() <= 1
+    expected = np.asarray(_escape_xla(cx, cy, ccx, ccy, 80, 3.0))
+    got = np.asarray(kernel(cx, cy, ccx, ccy, 80, 3.0, block=(16, 64)))
+    np.testing.assert_array_equal(got, expected)
 
 
 def test_escape_counts_monotone_in_budget():
@@ -101,104 +95,55 @@ def test_escape_counts_monotone_in_budget():
     assert many.max() == 200  # interior pixels exist in this view
 
 
-def test_predict_rounds_is_lower_bound():
-    """Decimated prediction never exceeds the true block round count (a
-    subset's max can't beat the block max), and interior predicts 0."""
-    from shaderflow_tpu.ops.fractal import _interior_mask, _predict_rounds
-
-    h, w, th, tw, sub, unroll, dec = 128, 256, 64, 128, 32, 8, 16
-    cx, cy = grid(h, w)
-    interior = _interior_mask(cx, cy)
-    pred = np.asarray(_predict_rounds(cx, cy, cx, cy, 96, 3.0, interior,
-                                      unroll, th, tw, sub, dec=dec))
-    trips = np.asarray(_escape_xla(cx, cy, cx, cy, 96, 3.0,
-                                   interior=interior))
-    trips = np.where(np.asarray(interior), 0, trips)
-    n_ti, n_tj, n_sub = pred.shape
-    for ti in range(n_ti):
-        for tj in range(n_tj):
-            for s in range(n_sub):
-                r0 = ti * th + s * sub
-                block = trips[r0:r0 + sub, tj * tw:(tj + 1) * tw]
-                true_rounds = int(np.ceil(block.max() / unroll))
-                assert pred[ti, tj, s] <= true_rounds
-
-
-def test_predicted_rounds_bit_identical():
-    """Prediction only changes WHICH loop runs the rounds (scalar-cond fori
-    vs vector-cond while); iteration counts must not move by one ULP."""
-    from jax.experimental.pallas import tpu as pltpu
-    from shaderflow_tpu.ops.fractal import _interior_mask, _predict_rounds
-
-    h, w, th, tw, sub, unroll = 128, 256, 64, 128, 32, 8
-    cx, cy = grid(h, w)
-    interior = _interior_mask(cx, cy)
-    pred = _predict_rounds(cx, cy, cx, cy, 96, 3.0, interior,
-                           unroll, th, tw, sub, dec=16)
-    assert pred is not None
-    with pltpu.force_tpu_interpret_mode():
-        base = np.asarray(_escape_pallas(
-            cx, cy, cx, cy, 96, 3.0, tile=(th, tw), unroll=unroll,
-            sub_rows=sub, interior=interior, monotone=True))
-        fast = np.asarray(_escape_pallas(
-            cx, cy, cx, cy, 96, 3.0, tile=(th, tw), unroll=unroll,
-            sub_rows=sub, interior=interior, monotone=True,
-            predicted_rounds=pred))
-        # A deliberately-wrong UNDER-prediction must also be exact (the
-        # mop-up while covers it), including all-zeros
-        zero = np.asarray(_escape_pallas(
-            cx, cy, cx, cy, 96, 3.0, tile=(th, tw), unroll=unroll,
-            sub_rows=sub, interior=interior, monotone=True,
-            predicted_rounds=jnp.zeros_like(pred)))
-    np.testing.assert_array_equal(base, fast)
-    np.testing.assert_array_equal(base, zero)
-
-
-def test_predict_geometry_guard():
-    """Non-decimatable geometry returns None (caller skips prediction)."""
-    from shaderflow_tpu.ops.fractal import _predict_rounds
-    cx, cy = grid(64, 128)
-    assert _predict_rounds(cx, cy, cx, cy, 96, 3.0, None,
-                           8, 64, 128, 24, dec=16) is None
-
-
 def test_lines_kernel_matches_plane_kernel():
     """The separable-c lines kernel (two line inputs, c/z0/interior rebuilt
-    in VMEM) is bit-identical to the plane kernel AND the XLA fallback on
-    the outer-product grid — including saturation and the interior mask."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-    from shaderflow_tpu.ops.fractal import _interior_mask
-
-    h, w = 64, 128
-    cx_line = np.linspace(-2.2, 1.0, w, dtype=np.float32)
-    cy_line = np.linspace(-1.3, 1.3, h, dtype=np.float32)
-    cx = np.broadcast_to(cx_line[None, :], (h, w))
-    cy = np.broadcast_to(cy_line[:, None], (h, w))
+    per block) is bit-identical to the plane kernel AND the XLA loop on the
+    outer-product grid — including saturation and the interior mask."""
+    cx_line, cy_line, cx, cy = lines()
     for cap in (None, 37):
-        ref = np.asarray(_escape_xla(
-            jnp.asarray(cx), jnp.asarray(cy), jnp.asarray(cx),
-            jnp.asarray(cy), 100, 3.0,
-            interior=_interior_mask(jnp.asarray(cx), jnp.asarray(cy)),
-            saturate=cap))
-        if cap is not None:
-            ref = np.minimum(ref, cap)
-            ref = np.where(np.asarray(_interior_mask(
-                jnp.asarray(cx), jnp.asarray(cy))), 100, ref)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(_escape_pallas(
-                jnp.asarray(cx_line).reshape(1, w),
-                jnp.asarray(cy_line).reshape(h, 1),
-                None, None, 100, 3.0, tile=(32, 64), unroll=16,
-                saturate=cap, sub_rows=16, monotone=True, lines=True))
+        ref = np.asarray(_escape_xla(cx, cy, cx, cy, 100, 3.0,
+                                     interior=_interior_mask(cx, cy),
+                                     saturate=cap))
+        plane = np.asarray(kernel(cx, cy, cx, cy, 100, 3.0, block=(32, 64),
+                                  interior=True, saturate=cap))
+        got = np.asarray(kernel(cx_line, cy_line, None, None, 100, 3.0,
+                                block=(32, 64), lines=True, interior=True,
+                                saturate=cap))
+        np.testing.assert_array_equal(plane, ref, err_msg=f"cap={cap}")
         np.testing.assert_array_equal(got, ref, err_msg=f"cap={cap}")
 
 
-def test_escape_iterations_sep_fallback_matches():
-    """On non-TPU backends escape_iterations_sep falls back to the plane
-    path on the broadcast grid — same counts as escape_iterations."""
-    from shaderflow_tpu.ops.fractal import escape_iterations_sep
+@pytest.mark.parametrize("shape,block", [
+    ((37, 150), (16, 32)),    # neither axis divides: masked edge blocks
+    ((8, 64), (16, 64)),      # block taller than the frame
+    ((48, 96), (8, 128)),     # block wider than the frame
+])
+def test_kernel_edge_blocks_masked(shape, block):
+    """Blocks that hang past the frame must neither read nor write outside
+    it: counts match the XLA loop everywhere, at every block shape."""
+    cx_line, cy_line, cx, cy = lines(*shape)
+    ref = np.asarray(_escape_xla(cx, cy, cx, cy, 60, 3.0,
+                                 interior=_interior_mask(cx, cy)))
+    got = np.asarray(kernel(cx_line, cy_line, None, None, 60, 3.0,
+                            lines=True, interior=True, block=block, unroll=3))
+    assert got.shape == shape
+    np.testing.assert_array_equal(got, ref)
 
+
+@pytest.mark.parametrize("out_dtype", [jnp.int32, jnp.float32])
+def test_kernel_out_dtype(out_dtype):
+    cx_line, cy_line, cx, cy = lines(16, 64)
+    got = kernel(cx_line, cy_line, None, None, 40, 3.0, lines=True,
+                 interior=True, block=(16, 64), out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    ref = _escape_xla(cx, cy, cx, cy, 40, 3.0,
+                      interior=_interior_mask(cx, cy))
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+
+
+def test_escape_iterations_sep_fallback_matches():
+    """Off the GPU escape_iterations_sep takes the plane path on the
+    broadcast grid — same counts as escape_iterations."""
     w, h = 96, 48
     cx_line = np.linspace(-2.0, 0.7, w, dtype=np.float32)
     cy_line = np.linspace(-1.2, 1.2, h, dtype=np.float32)
@@ -208,55 +153,39 @@ def test_escape_iterations_sep_fallback_matches():
     np.testing.assert_array_equal(a, b)
 
 
-def test_lines_kernel_predicted_rounds_bit_identical():
-    """The separable-c lines kernel composes with scalar-prefetched
-    predicted rounds (the mandelbrot graded config runs exactly this under
-    SHADERFLOW_FRACTAL_PREDICT): counts stay bit-identical to the
-    unpredicted lines kernel for a correct lower bound, a deliberate
-    under-prediction (zeros), and a deliberate OVER-prediction (the
-    monotone count path cannot over-count dead pixels)."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-    from shaderflow_tpu.ops.fractal import _predict_rounds_sep
+@pytest.mark.parametrize("entry", ["plane", "sep", "z0"])
+def test_dispatch_on_gpu_uses_kernel(monkeypatch, entry):
+    """Where the kernel is available, every entry point routes through it
+    (here in interpret mode) and gives the XLA loop's counts."""
+    calls = []
 
-    h, w = 64, 128
-    th, tw, sub, unroll = 32, 64, 16, 8
-    cx_line = jnp.asarray(np.linspace(-2.2, 1.0, w, dtype=np.float32))
-    cy_line = jnp.asarray(np.linspace(-1.3, 1.3, h, dtype=np.float32))
-    cap = 37
-    trip = min(96, -(-cap // unroll) * unroll)
-    pred = _predict_rounds_sep(cx_line, cy_line, trip, 3.0, unroll,
-                               th, tw, sub, dec=16)
-    assert pred is not None
-    args = (cx_line.reshape(1, w), cy_line.reshape(h, 1), None, None, 96, 3.0)
-    kw = dict(tile=(th, tw), unroll=unroll, saturate=cap, sub_rows=sub,
-              monotone=True, lines=True)
-    with pltpu.force_tpu_interpret_mode():
-        base = np.asarray(_escape_pallas(*args, **kw))
-        fast = np.asarray(_escape_pallas(*args, predicted_rounds=pred, **kw))
-        zero = np.asarray(_escape_pallas(
-            *args, predicted_rounds=jnp.zeros_like(pred), **kw))
-        over = np.asarray(_escape_pallas(
-            *args, predicted_rounds=jnp.full_like(pred, 10 ** 6), **kw))
-    np.testing.assert_array_equal(fast, base)
-    np.testing.assert_array_equal(zero, base)
-    np.testing.assert_array_equal(over, base)
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return _escape_kernel(*args, interpret=True, **kwargs)
+
+    cx_line, cy_line, cx, cy = lines(32, 64)
+    c = jnp.stack([cx, cy], axis=-1)
+    if entry == "plane":
+        run = lambda: escape_iterations(c, 50, saturate=29)
+    elif entry == "sep":
+        run = lambda: escape_iterations_sep(cx_line, cy_line, 50, saturate=29)
+    else:
+        run = lambda: escape_iterations_z0(c, -0.8, 0.156, 50, saturate=29)
+    expected = np.asarray(run())
+    monkeypatch.setattr(fractal, "_use_kernel", lambda: True)
+    monkeypatch.setattr(fractal, "_escape_kernel", spy)
+    got = np.asarray(run())
+    assert len(calls) == 1
+    assert calls[0].get("lines", False) == (entry == "sep")
+    assert calls[0].get("interior", False) == (entry != "z0")
+    np.testing.assert_array_equal(got, expected)
 
 
-def test_predict_rounds_sep_matches_plane_predictor():
-    """_predict_rounds_sep on lines equals _predict_rounds on the broadcast
-    planes (same decimation, same interior handling, same binning)."""
-    from shaderflow_tpu.ops.fractal import (_interior_mask, _predict_rounds,
-                                            _predict_rounds_sep)
-    import jax.numpy as jnp
+def test_dispatch_off_gpu_uses_xla(monkeypatch):
+    """The CPU backend never reaches the kernel."""
+    def boom(*args, **kwargs):
+        raise AssertionError("kernel reached off the GPU")
 
-    h, w = 64, 128
-    cx_line = jnp.asarray(np.linspace(-2.2, 1.0, w, dtype=np.float32))
-    cy_line = jnp.asarray(np.linspace(-1.3, 1.3, h, dtype=np.float32))
-    cx = jnp.broadcast_to(cx_line[None, :], (h, w))
-    cy = jnp.broadcast_to(cy_line[:, None], (h, w))
-    interior = _interior_mask(cx, cy)
-    a = _predict_rounds_sep(cx_line, cy_line, 96, 3.0, 8, 32, 64, 16, dec=16)
-    b = _predict_rounds(cx, cy, cx, cy, 96, 3.0, interior,
-                        8, 32, 64, 16, dec=16)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    monkeypatch.setattr(fractal, "_escape_kernel", boom)
+    cx_line, cy_line, _, _ = lines(16, 32)
+    assert np.asarray(escape_iterations_sep(cx_line, cy_line, 30)).shape == (16, 32)

@@ -1,6 +1,7 @@
 """Multi-chip frame sharding on the virtual 8-device CPU mesh."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -100,3 +101,26 @@ def test_feedback_scene_falls_back_to_single_chip(tmp_path):
     frames = np.frombuffer(out.read_bytes(), np.uint8).reshape(3, 8, 16, 3)
     np.testing.assert_allclose(frames[:, 0, 0, 0] / 255, [0.1, 0.2, 0.3],
                                atol=0.01)
+
+
+def test_devices_beyond_available_raise(tmp_path):
+    """main(devices=N) with fewer than N devices must fail, not quietly
+    render on one device."""
+    import jax
+    wanted = len(jax.devices()) * 2
+    with pytest.raises(RuntimeError, match="devices"):
+        Ramp().main(width=64, height=32, fps=10, time=0.2,
+                    output=str(tmp_path / "x.raw"), devices=wanted)
+
+
+def test_feedback_scene_indivisible_rows_raise(tmp_path):
+    """A feedback scene whose height does not split over the devices cannot
+    be row-sharded: the request fails instead of falling back."""
+    class Feedback(ShaderScene):
+        def build(self):
+            self.shader.texture.temporal = 2
+            self.shader.fragment = lambda sf: ops.vec4(0.5, 0.0, 0.0, 1.0)
+
+    with pytest.raises(ValueError, match="row shards"):
+        Feedback().main(width=16, height=12, fps=10, time=0.2,
+                        output=str(tmp_path / "fb.raw"), devices=8)

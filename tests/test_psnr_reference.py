@@ -59,7 +59,7 @@ def test_default_scene_psnr(ssaa, subsample):
 
 
 def test_mandelbrot_psnr():
-    """Graded config 3: Mandelbrot escape-time (Pallas kernel on TPU,
+    """Graded config 3: Mandelbrot escape-time (Pallas kernel on the GPU,
     XLA loop on CPU) vs the oracle's python escape loop."""
     import fractals
 
@@ -150,21 +150,16 @@ def test_waveform_parity():
         assert disagree < 0.005, f"frame {index}: {disagree:.2%} pixels differ"
 
 
-@pytest.mark.parametrize("blur_level,bar,tail_bf16", [
-    (4, 40.0, False),
-    (1, 50.0, False),
-    # SHADERFLOW_TAIL_BF16: the color chain in bfloat16 (the staged VPU/
-    # VMEM lever, ROADMAP #1) must still clear the acceptance bar vs the
-    # f32 GL oracle — this is the PSNR gate that decides whether the flag
-    # may ever ship enabled.
-    (1, 40.0, True),
+@pytest.mark.parametrize("blur_level,bar", [
+    (4, 40.0),
+    (1, 50.0),
 ])
-def test_visualizer_psnr(blur_level, bar, tail_bf16, monkeypatch):
+def test_visualizer_psnr(blur_level, bar, monkeypatch):
     """Graded config 2 (the flagship): the full visualizer vs a POINTWISE
     GLSL transcription (literal 80-tap blur loop, per-pixel bilinear
     background samples, nearest bar lookup) — the independent check on the
     engine's restructured formulation: blur-sample commutation, separable
-    sampling, the batched MXU bar lookup, and the column-major rotate2d
+    sampling, the batched bar lookup, and the column-major rotate2d
     convention (music_uv = (-y, x), not the textbook (y, -x)).
 
     Frames with LIVE audio matter: volume drives the blur intensity, bar
@@ -175,8 +170,6 @@ def test_visualizer_psnr(blur_level, bar, tail_bf16, monkeypatch):
     import demo
 
     monkeypatch.setenv("SHADERFLOW_VIZ_BLUR_LEVEL", str(blur_level))
-    if tail_bf16:
-        monkeypatch.setenv("SHADERFLOW_TAIL_BF16", "1")
     scene = demo.Visualizer()
     width, height = 320, 180
     frames, uniforms = engine_frames_and_uniforms(

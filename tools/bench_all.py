@@ -1,7 +1,7 @@
 """
-Run every graded benchmark config (BASELINE.md) through bench.py and write
-BENCHMARKS.md — one subprocess per config so device/jit state is isolated
-and the persistent compile cache is exercised exactly as the driver does.
+Run every graded benchmark config (BASELINE.md) through bench.py on the GPU
+and print a table — one subprocess per config, one after another, so
+device/jit state is isolated and only one JAX process holds the card.
 
 Usage: python tools/bench_all.py [--quick]
 """
@@ -12,32 +12,28 @@ import json
 import os
 import subprocess
 import sys
-from datetime import datetime, timezone
 from pathlib import Path
 
 REPO = Path(__file__).parent.parent
 
-# (name, env overrides, realtime-multiple target). Only the visualizer has
-# a driver-defined numeric target (>=10x, BASELINE.md north star); the
-# other graded configs have none published — 1x (realtime) is the floor.
 CONFIGS = [
     ("basic 512x288@30", dict(BENCH_SCENE="basic", BENCH_WIDTH="512",
-                              BENCH_HEIGHT="288", BENCH_FPS="30", BENCH_SSAA="1.0"), 1.0),
+                              BENCH_HEIGHT="288", BENCH_FPS="30", BENCH_SSAA="1.0")),
     ("bars 1280x720@30", dict(BENCH_SCENE="bars", BENCH_WIDTH="1280",
-                              BENCH_HEIGHT="720", BENCH_FPS="30", BENCH_SSAA="1.0"), 1.0),
-    ("visualizer 1920x1080@60 2xSSAA", dict(BENCH_SCENE="visualizer"), 10.0),
-    ("mandelbrot 1920x1080@60 2xSSAA", dict(BENCH_SCENE="mandelbrot"), 1.0),
-    ("raymarch 1920x1080@60", dict(BENCH_SCENE="raymarch", BENCH_SSAA="1.0"), 1.0),
+                              BENCH_HEIGHT="720", BENCH_FPS="30", BENCH_SSAA="1.0")),
+    ("visualizer 1920x1080@60 2xSSAA", dict(BENCH_SCENE="visualizer")),
+    ("mandelbrot 1920x1080@60 2xSSAA", dict(BENCH_SCENE="mandelbrot")),
+    ("raymarch 1920x1080@60", dict(BENCH_SCENE="raymarch", BENCH_SSAA="1.0")),
     ("pianoroll 3840x2160@60", dict(BENCH_SCENE="pianoroll", BENCH_WIDTH="3840",
                                     BENCH_HEIGHT="2160", BENCH_SSAA="1.0",
-                                    BENCH_BATCH="64"), 1.0),
+                                    BENCH_BATCH="64")),
 ]
 
 
 def main() -> None:
     quick = "--quick" in sys.argv
     rows = []
-    for name, overrides, target in CONFIGS:
+    for name, overrides in CONFIGS:
         env = dict(os.environ, **overrides)
         if quick:
             env.setdefault("BENCH_SECONDS", "3")
@@ -49,61 +45,23 @@ def main() -> None:
             result = json.loads(line)
         except json.JSONDecodeError:
             print(proc.stderr[-2000:], file=sys.stderr)
-            rows.append((name, None, target))
+            rows.append((name, None))
             continue
-        rows.append((name, result, target))
+        rows.append((name, result))
         print(line, file=sys.stderr, flush=True)
 
-    stamp = datetime.now(timezone.utc).strftime("%Y-%m-%d %H:%MZ")
-    device = next((r["detail"]["device"] for _, r, _ in rows if r), "?")
-    lines = [
-        "# Benchmark matrix — graded configs (BASELINE.md)",
-        "",
-        f"Measured {stamp} on `{device}` (export to NullSink, warm compile cache;",
-        "`python tools/bench_all.py`).",
-        "",
-        "| Config | Export fps | Realtime x | Target x | vs target |",
-        "|---|---|---|---|---|",
-    ]
-    for name, result, target in rows:
+    device = next((r["detail"]["device"] for _, r in rows if r), "?")
+    print(f"Export to a null sink, warm, on {device}:\n")
+    print("| Config | Export fps | Realtime x |")
+    print("|---|---|---|")
+    for name, result in rows:
         if result is None:
-            lines.append(f"| {name} | FAILED | — | {target:g} | — |")
+            print(f"| {name} | FAILED | — |")
             continue
-        realtime = result["detail"]["realtime_multiple"]
-        lines.append(
-            f"| {name} | {result['value']:.1f} | {realtime:.2f}x "
-            f"| {target:g}x | {realtime / target:.2f} |")
-    lines.append("")
-    extra = REPO / "docs" / "BENCHMARKS_extra.md"
-    if extra.exists():
-        lines.append(extra.read_text())
-    (REPO / "BENCHMARKS.md").write_text("\n".join(lines))
-    print(f"Wrote {REPO / 'BENCHMARKS.md'}", file=sys.stderr)
-
-    # Machine-readable artifact at the same commit (VERDICT r4 #1): one
-    # dated JSON carrying every graded config from one serialized session.
-    try:
-        commit = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
-                                cwd=REPO, capture_output=True,
-                                text=True).stdout.strip()
-    except OSError:
-        commit = "unknown"
-    payload = {
-        "measured_at": stamp,
-        "commit": commit,
-        "device": device,
-        "configs": [
-            {"name": name, "target_x": target,
-             **({"fps": result["value"],
-                 "realtime_x": result["detail"]["realtime_multiple"],
-                 "vs_target": round(result["detail"]["realtime_multiple"]
-                                    / target, 3)}
-                if result else {"error": "failed"})}
-            for name, result, target in rows
-        ],
-    }
-    (REPO / "BENCHMARKS.json").write_text(json.dumps(payload, indent=1))
-    print(f"Wrote {REPO / 'BENCHMARKS.json'}", file=sys.stderr)
+        print(f"| {name} | {result['value']} "
+              f"| {result['detail']['realtime_multiple']}x |")
+    if any(result is None for _, result in rows):
+        sys.exit(1)
 
 
 if __name__ == "__main__":

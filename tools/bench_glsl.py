@@ -3,11 +3,11 @@
 Renders the same scenes twice at the graded configs — once with this repo's
 python pixel function, once with the reference's own `.frag` source through
 the GLSL front-end (shaderflow_tpu/glsl.py) — and reports both fps. The
-python fragments use TPU-only fast paths (separable sampling, fused tail,
-preludes) the front-end does not emit, so the delta IS the price of
+python fragments use structured fast paths (separable sampling, the tail
+stage, preludes) the front-end does not emit, so the delta IS the price of
 portability; raymarch isolates the lax.while_loop loop lowering.
 
-Run serialized on the chip. Emits one JSON line per row.
+Run on the GPU with nothing else on the card. Emits one JSON line per row.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ This measures both at the configs that motivated the change:
   * 4K ssaa=0.5 exactly (render 1920x1080 -> 3840x2160, subsample=2 taps)
   * 1080p raw-scale x1.5 (720p render upscaled, subsample=1)
 
-Run ON THE CHIP (serialized; see tools/chip_session.sh). Prints one line
+Run on the GPU with nothing else on the card. Prints one line
 per config: dense ms, blocked ms, speedup.
 """
 

@@ -13,15 +13,15 @@ This walker instead traverses the jaxpr recursively and multiplies:
     close the loop with a measured trip count (tools/roofline.py does this
     for the mandelbrot escape kernel from the measured iteration map).
 
-Three op classes are kept separate because they hit different v5e walls:
-  alu   — single-pass VPU ops (add/mul/select/compare/...)
-  eup   — transcendentals (exp/log/sqrt/sin/...; the EUP runs them as
-          multi-pass sequences, several x slower than ALU ops)
-  mxu   — dot_general / conv FLOPs (2*M*N*K), the MXU's domain
+Three op classes are kept separate because they cost differently:
+  alu   — single-pass elementwise ops (add/mul/select/compare/...)
+  eup   — transcendentals (exp/log/sqrt/sin/...; multi-instruction
+          sequences, several x slower than ALU ops)
+  mxu   — dot_general / conv FLOPs (2*M*N*K), the matrix units' domain
 
 Byte accounting is an analytic HBM floor: top-level program inputs +
 outputs, plus every pallas_call's full operand/result sizes (each kernel
-streams its operands HBM->VMEM once per launch). XLA-fused intermediates
+reads its operands from device memory once per launch). XLA-fused intermediates
 between kernels are not modeled — the result is a LOWER bound on traffic.
 
 Verified against hand counts in tests/test_flopcount.py.

@@ -256,7 +256,7 @@ def visualizer_fragment(uniforms: dict, width: int, height: int,
     """examples/basic/shaders/visualizer.frag -> (H, W, 3) f32, transcribed
     POINTWISE (per-pixel bilinear samples, the literal 80-tap blur loop) —
     the independent check on the engine's restructured formulation
-    (separable sampling, blur-sample commutation, MXU bar lookup).
+    (separable sampling, blur-sample commutation, batched bar lookup).
 
     textures: background (Hb, Wb, 3) f32 row-0-bottom; spectrogram
     (bins, 2) f32 row-0-bottom (NEAREST, the smooth=False scene config);
